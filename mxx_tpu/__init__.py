@@ -1,7 +1,7 @@
-"""mxx_tpu — TPU-native lattice-cryptography framework (JAX/XLA/Pallas).
+"""mxx_tpu — lattice-cryptography framework in JAX/XLA.
 
 Brand-new implementation with the capabilities of the MachinaIO/mxx reference
-(Rust + OpenFHE + CUDA), redesigned array-first for TPUs: DCRT polynomials are
+(Rust + OpenFHE + CUDA), redesigned array-first: DCRT polynomials are
 uint32[L, n] arrays, matrices uint32[L, r, c, n], all ops pure jitted
 functions, sharding via named meshes, randomness via counter-based keyed PRNG.
 """
@@ -9,7 +9,7 @@ functions, sharding via named meshes, randomness via counter-based keyed PRNG.
 import jax
 
 # u64/f64 are required by the samplers (96-bit uniform reduction, Gaussian CDF
-# tables). uint32 arrays remain uint32; TPU emulates 64-bit where needed.
+# tables). uint32 arrays remain uint32.
 jax.config.update("jax_enable_x64", True)
 
 from .ring.params import RingParams  # noqa: E402,F401

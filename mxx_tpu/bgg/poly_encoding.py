@@ -1,7 +1,7 @@
 """Packed slot-wise BGG encoding: one shared pubkey, per-slot vectors.
 
-TPU-build of /root/reference/src/bgg/poly_encoding.rs + the
-`BGGPolyEncodingSampler` (bgg/sampler.rs:190-529). TPU-first redesign: the
+Build of the reference's src/bgg/poly_encoding.rs + the
+`BGGPolyEncodingSampler` (bgg/sampler.rs:190-529). Array-first redesign: the
 reference stores per-slot vector bytes and fans slot work out across
 GPUs/rayon (poly_encoding.rs:22-72); here the S slot vectors are the S rows
 of ONE device matrix, so every slot-parallel wire op is a single batched

@@ -1,11 +1,11 @@
 """Level-batched circuit evaluation over BGG wires.
 
-TPU-build of the reference's level-parallel evaluator
+Build of the reference's level-parallel evaluator
 (/root/reference/src/circuit/poly_circuit/eval.rs:210-921 with
 MXX_CIRCUIT_PARALLEL_GATES, analysis.rs GroupedExecutionPlan): gates are
 walked level by level; same-kind same-shape gates within a level collapse
 into ONE device program over a row-stacked operand tensor. Where the
-reference fans gates across rayon threads / GPU streams, the TPU-native
+reference fans gates across rayon threads / GPU streams, the array-first
 answer is a bigger array: stacking B one-row wires gives [L, B, m, n]
 operands that the existing exact kernels (ew_*, zq_matmul, digit_decompose)
 consume unchanged, so batched results are bit-identical to sequential ones.

@@ -1,6 +1,6 @@
 """WEE25 matrix commitment with trapdoor-sampled openings.
 
-TPU-build of /root/reference/src/commit/wee25.rs (SURVEY.md A.4). Structure:
+Build of the reference's src/commit/wee25.rs (SURVEY.md A.4). Structure:
 
 - Public params: trapdoor pair (B, T) with B in M^{d x m_b}; Gaussian
   T_bottom in M^{m_b x j2m} (j2m = l*log_q cols, l = tree_base*m_b); and for

@@ -67,7 +67,7 @@ def diamond_io_eval_relation_asserts() -> bool:
 def bgg_poly_encoding_slot_parallelism() -> int:
     """Slots evaluated concurrently for packed encodings (reference env.rs
     BGG_POLY_ENCODING_SLOT_PARALLELISM; informational here — packed slot ops
-    are single batched matmuls on TPU)."""
+    are single batched matmuls here)."""
     return _env_int("BGG_POLY_ENCODING_SLOT_PARALLELISM", 8)
 
 

@@ -1,6 +1,6 @@
 """Masked-decoder benchmark scaling.
 
-TPU-build of /root/reference/src/decoder/bench.rs (343 LoC): measures the
+Build of the reference's src/decoder/bench.rs (343 LoC): measures the
 per-output masked-decode cost (projection matmul + G^{-1} fold + coefficient
 extraction) at the target parameters and extrapolates over output counts, so
 protocol estimators can price wide-output decoders without running them.
@@ -11,7 +11,8 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
-from ..bench_estimator.estimator import force
+import jax
+
 from ..matrix import PolyMatrix
 from ..sampler import FinRingDist, UniformSampler
 
@@ -36,7 +37,7 @@ def measure_masked_decode_cost(params, secret_size: int = 1,
 
     def op():
         noisy = proj - c_sd.mul_decompose(sel)
-        force(noisy.data)
+        jax.block_until_ready(noisy.data)
         return noisy.entry(0, 0).coeffs()[0]
 
     op()  # warm the jit caches

@@ -1,6 +1,6 @@
 """Mask-decrypt circuits shared by masked decoders.
 
-TPU-build of /root/reference/src/decoder/mask_circuit.rs: derives per-bit
+Build of the reference's src/decoder/mask_circuit.rs: derives per-bit
 plaintext moduli for bit-decomposed masks (bit j decrypts with modulus
 q / 2^j so the Ring-GSW q/t scaling contributes the 2^j weight), and builds
 split GSW decrypt circuits whose (secret_dependent, public_bottom) pairs feed

@@ -1,6 +1,6 @@
 """Masked high-bit decoder: preimage-backed decode cancellation + rounding.
 
-TPU-build of /root/reference/src/decoder/masked_high_bit.rs. The offline pass
+Build of the reference's src/decoder/masked_high_bit.rs. The offline pass
 stores, per decoder output, a trapdoor preimage of the projected public-key
 target [A * G^{-1}(e_0) ; 0]; the online pass computes
 

@@ -1,6 +1,6 @@
 """PRG output-range bookkeeping for decoder pipelines.
 
-TPU-build of /root/reference/src/decoder/prg.rs:5-28: protocols carve one
+Build of the reference's src/decoder/prg.rs:5-28: protocols carve one
 conceptual Goldreich PRG output stream into named contiguous ranges (seed
 refresh bits, mask coefficient bits, noise material), so every consumer draws
 from a disjoint window of the same full-domain graph."""

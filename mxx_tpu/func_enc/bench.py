@@ -1,6 +1,6 @@
 """AKY24 FE keygen/dec benchmark estimation + decryption error simulation.
 
-TPU-build of /root/reference/src/func_enc/aky24/{keygen_bench.rs (353 LoC),
+Build of the reference's src/func_enc/aky24/{keygen_bench.rs (353 LoC),
 dec_bench.rs (250 LoC), error_simulation.rs (874 LoC)}: measured per-op costs
 extrapolated over the keygen (pubkey-path circuit eval + functional-key
 trapdoor preimage) and dec (encoding-path circuit eval + projection decode)

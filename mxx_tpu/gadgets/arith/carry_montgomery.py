@@ -1,7 +1,7 @@
 """Carry-propagation big-integer arithmetic + Montgomery modular multiply,
 in-circuit.
 
-TPU-build of /root/reference/src/gadgets/arith/carry_montgomery/
+Build of the reference's src/gadgets/arith/carry_montgomery/
 {carry_arith.rs,montgomery.rs}: the alternative to nested-RNS — an integer is
 base-2^b limb wires, additions/multiplications accumulate raw limb values,
 and LUTs split them into (low limb, carry) during normalization. Montgomery

@@ -1,6 +1,6 @@
 """Nested-RNS in-circuit big-integer arithmetic.
 
-TPU-build of the reference's nested-RNS gadget
+Build of the reference's nested-RNS gadget
 (/root/reference/src/gadgets/arith/nested_rns/{mod.rs,context.rs,encoding.rs,
 poly.rs}; SURVEY.md §2.4). An integer x modulo a window of the ring's CRT
 moduli q_0..q_{D-1} is represented per q-level as residues in a synthetic

@@ -1,6 +1,6 @@
 """Negacyclic convolution gadget over slot-packed wires (NTT-free).
 
-TPU-build of /root/reference/src/gadgets/conv_mul/mod.rs: for packed wires
+Build of the reference's src/gadgets/conv_mul/mod.rs: for packed wires
 a, b carrying N slot values, computes c = a * b in Z[X]/(X^N + 1) via
 
 - signed diagonals diag_d[i] = a_d (i >= d), -a_d (i < d), built as

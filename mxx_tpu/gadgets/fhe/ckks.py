@@ -1,6 +1,6 @@
 """CKKS-style leveled arithmetic inside BGG circuits over nested-RNS wires.
 
-TPU-build of /root/reference/src/gadgets/fhe/ckks.rs: ciphertexts are pairs
+Build of the reference's src/gadgets/fhe/ckks.rs: ciphertexts are pairs
 (c0, c1) of NestedRnsPoly wires living in a q-level window offset by
 `relinearization_extra_levels` (the "P" factor). mul follows the paper's
 page-12 structure (ckks.rs:337-426): tensor (d0, d1, d2), ModUp(d2) to the

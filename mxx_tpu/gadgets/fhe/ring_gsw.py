@@ -1,6 +1,6 @@
 """RingGSW FHE evaluated inside circuits over nested-RNS entries.
 
-TPU-build of the reference RingGSW gadget
+Build of the reference RingGSW gadget
 (/root/reference/src/gadgets/fhe/{ring_gsw.rs,ring_gsw_nested_rns.rs};
 SURVEY.md §2.4). A ciphertext is C = A + m*G in Z_Q^{2 x 2L} with
 A = [a ; s*a + e], secret key (-s, 1), gadget G = I_2 (x) g where g is the

@@ -1,6 +1,6 @@
 """Goldreich local PRG over FHE ciphertexts (predicate TSA = XOR3 (+) AND2).
 
-TPU-build of /root/reference/src/gadgets/fhe_prg/goldreich.rs: output bit
+Build of the reference's src/gadgets/fhe_prg/goldreich.rs: output bit
 y_i = x[a] ^ x[b] ^ x[c] ^ (x[d] & x[e]) with a deterministic seeded graph,
 duplicate edges rejected by a role-aware key (sorted XOR triple + sorted AND
 pair; optional strict same-vertex-set rejection). Evaluation composes the

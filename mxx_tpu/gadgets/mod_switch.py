@@ -1,6 +1,6 @@
 """CKKS-style modulus switching over nested-RNS values.
 
-TPU-build of /root/reference/src/gadgets/mod_switch/nested_rns.rs (the
+Build of the reference's src/gadgets/mod_switch/nested_rns.rs (the
 reference keeps this module commented out of gadgets/mod.rs:5-6; it is used
 by the CKKS helpers). Provides:
 

@@ -1,6 +1,6 @@
 """In-circuit radix-2 negacyclic NTT over packed slots.
 
-TPU-build of /root/reference/src/gadgets/ntt/mod.rs: the butterfly network is
+Build of the reference's src/gadgets/ntt/mod.rs: the butterfly network is
 expressed as explicit slot-transfer gates (per-destination source slot +
 twiddle scalar) followed by adds/subs and LUT-based mod-p reduction — the
 direct circuit analog of the device NTT (ring/ntt.py), sharing its merged-psi

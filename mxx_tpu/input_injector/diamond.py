@@ -1,6 +1,6 @@
 """Diamond iO input insertion: trapdoor-chain state machine over input digits.
 
-TPU-build of /root/reference/src/input_injector/mod.rs. Preprocessing builds,
+Build of the reference's src/input_injector/mod.rs. Preprocessing builds,
 per level l (1..=input_count), digit value, and branch state, the transition
 preimage
     K_{l,digit,state} = B_{l-1,src}^{-1}( S * B_{l,state} + e )

@@ -1,7 +1,7 @@
 """AKY24 FE-to-iO wrapper: parameter carrier + error simulation + crt-depth
 search.
 
-TPU-build of /root/reference/src/io/aky24_io.rs. As in the reference, this is
+Build of the reference's src/io/aky24_io.rs. As in the reference, this is
 the parameter carrier used by the simulation/bench-estimation pipeline: it
 shares the DiamondIO PRF / noise-refresh / decode models but replaces the
 Diamond input-injection state with a fresh Gaussian encoding error. The

@@ -1,7 +1,7 @@
 """DiamondIO benchmark estimation: measured per-op costs extrapolated over
 the protocol phase structure.
 
-TPU-build of /root/reference/src/io/diamond_io/bench_estimator*.rs +
+Build of the reference's src/io/diamond_io/bench_estimator*.rs +
 bench_estimator_shape.rs (SURVEY.md A.8): wall-clock a representative
 trapdoor preimage and per-gate wire ops at the target parameters, then
 aggregate over (a) the injector's transition-preimage count, (b) output
@@ -15,8 +15,9 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+import jax
+
 from ..bench_estimator import GateCostModel, estimate_circuit, measure_bgg_encoding_costs
-from ..bench_estimator.estimator import force
 from ..circuit.analysis import GroupedExecutionPlan
 from ..matrix import PolyMatrix
 from ..sampler import FinRingDist, TrapdoorSampler, UniformSampler
@@ -41,11 +42,11 @@ def measure_preimage_cost(params, d: int = 2, cols: int | None = None,
     td, b = ts.trapdoor(params, d)
     cols = cols if cols is not None else b.ncol
     target = UniformSampler(seed=1).sample_uniform(params, d, cols, FinRingDist())
-    force(ts.preimage(params, td, b, target).data)
+    jax.block_until_ready(ts.preimage(params, td, b, target).data)
     times = []
     for _ in range(iterations):
         t0 = time.perf_counter()
-        force(ts.preimage(params, td, b, target).data)
+        jax.block_until_ready(ts.preimage(params, td, b, target).data)
         times.append(time.perf_counter() - t0)
     times.sort()
     return times[len(times) // 2]

@@ -1,6 +1,6 @@
 """Diamond iO (eprint 2025/236): obfuscation + evaluation pipeline.
 
-TPU-build of /root/reference/src/io/diamond_io.rs (SURVEY.md §3.4-3.5).
+Build of the reference's src/io/diamond_io.rs (SURVEY.md §3.4-3.5).
 
 Pipeline (obfuscation):
 - ternary payload k, hash-derived BGG pubkeys, Diamond injector preprocessing

@@ -1,7 +1,7 @@
 """Diamond iO PRF mask pipeline: seed encryption, per-round branch-rebased
 PRG evolution with noise refresh, and the final in-circuit mask derivation.
 
-TPU-build of /root/reference/src/io/diamond_io/{utils.rs,circuits.rs}:
+Build of the reference's src/io/diamond_io/{utils.rs,circuits.rs}:
 - seed bits GSW-encrypted under the payload key k; ciphertext values are
   public and lift onto BGG wires by scalar-multiplying the one wire
   (utils.rs:192-230 native_ciphertexts_to_public_key_wires)

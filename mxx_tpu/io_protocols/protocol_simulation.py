@@ -1,7 +1,7 @@
 """Composed protocol error budget for the PRF-mask protocols (Diamond iO /
 AKY24 iO / AKY24 FE).
 
-TPU-build of /root/reference/src/io/diamond_io/simulation.rs,
+Build of the reference's src/io/diamond_io/simulation.rs,
 src/io/utils/simulation.rs and src/func_enc/aky24/error_simulation.rs
 (simulate_aky24_dec_error :232-388, max_safe_aky24_prf_mask_output_coeff_bits
 :388-470, aky24_find_crt_depth :472+): ONE simulation that chains

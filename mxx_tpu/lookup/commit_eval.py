@@ -1,6 +1,6 @@
 """WEE25-commitment-backed LUT evaluation (offline commit / online open).
 
-TPU-build of /root/reference/src/lookup/commit_eval.rs. Instead of storing a
+Build of the reference's src/lookup/commit_eval.rs. Instead of storing a
 per-row key matrix for every LUT entry (the LWE/GGH15 evaluators), the whole
 table is folded into ONE short WEE25 commitment:
 
@@ -121,7 +121,7 @@ def _build_msg_blocks(params, scheme: Wee25Commit, pp: Wee25PublicParams,
                       ) -> tuple[list[PolyMatrix], _LutLayout]:
     """Materialize the committed message vector (commit_eval.rs:417-522).
 
-    The reference streams blocks lazily through rayon; at TPU CI scales the
+    The reference streams blocks lazily through rayon; at test scales the
     table fits in host memory, so blocks are built eagerly once and shared by
     the offline commit and every online opening."""
     assert gate_states, "no LUT gates found for commit evaluator"

@@ -1,6 +1,6 @@
 """GGH15-chain public lookup-table evaluators over BGG+ wires.
 
-TPU-native build of the reference GGH15 lookup
+Build of the reference GGH15 lookup
 (/root/reference/src/lookup/ggh15/{pubkey.rs,encoding.rs}; SURVEY.md A.2).
 
 Structure: two trapdoors (B0, T0), (B1, T1). Per LUT entry x -> (row k, y), a

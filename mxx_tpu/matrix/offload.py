@@ -1,11 +1,11 @@
 """Out-of-core polynomial matrices: host/disk offload + streamed ops.
 
-TPU-build of /root/reference/src/matrix/base/disk.rs (mmap-file-backed
+Build of the reference's src/matrix/base/disk.rs (mmap-file-backed
 BaseMatrix) and the column-chunk pipelines of P5/P8 (SURVEY.md 2.7): large
 artifacts live in a numpy memmap of the raw limb planes; compute streams
 column chunks through the device, so peak device memory is one chunk instead
-of the whole operand. HBM is the scarce resource on TPU — the offload target
-is host RAM / disk via memmap instead of the reference's mmap tempfiles.
+of the whole operand. The offload target is host RAM / disk via memmap
+instead of the reference's mmap tempfiles.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Polynomial-matrix algebra over the DCRT ring: uint32[L, r, c, n] arrays.
 
-TPU-native replacement for the reference's `PolyMatrix` trait + CPU/GPU
-backends (/root/reference/src/matrix/mod.rs:45-379, matrix/dcrt_poly.rs,
+Replacement for the reference's `PolyMatrix` trait + CPU/GPU backends
+(reference src/matrix/mod.rs:45-379, matrix/dcrt_poly.rs,
 matrix/gpu_dcrt_poly.rs). Block algebra, gadget matrix, G^{-1} decomposition
-(big and per-tower "small"), tensor/concat/slice, and the exact MXU matmul.
+(big and per-tower "small"), tensor/concat/slice, and the exact int8-digit
+matmul.
 
 All bulk math is jitted device code; the class is a thin host-side wrapper
 holding (data, fmt, params).
@@ -238,16 +239,16 @@ class PolyMatrix:
     def to_eval(self) -> "PolyMatrix":
         if self.fmt == EVAL:
             return self
-        from ..ring.ntt import ntt_fwd_auto
-
-        return PolyMatrix(ntt_fwd_auto(self.data, self.params), EVAL, self.params)
+        jt = self.params.jt
+        data = ntt_fwd(self.data, jt.psi_rev_mont, jt.moduli, jt.qinv_neg)
+        return PolyMatrix(data, EVAL, self.params)
 
     def to_coeff(self) -> "PolyMatrix":
         if self.fmt == COEFF:
             return self
-        from ..ring.ntt import ntt_inv_auto
-
-        return PolyMatrix(ntt_inv_auto(self.data, self.params), COEFF, self.params)
+        jt = self.params.jt
+        data = ntt_inv(self.data, jt.psi_inv_rev_mont, jt.n_inv_mont, jt.moduli, jt.qinv_neg)
+        return PolyMatrix(data, COEFF, self.params)
 
     # ----------------------------------------------------------- arithmetic
 

@@ -1,6 +1,6 @@
 """Ring-GSW decryption circuits for noise-refresh PRG material.
 
-TPU-build of /root/reference/src/noise_refresh/circuit_decrypt.rs: decode
+Build of the reference's src/noise_refresh/circuit_decrypt.rs: decode
 ciphertext material into slotwise polynomial wires; the error+mask merge
 lives in circuit_merge. Error coefficients decrypt through
 `decrypt_error_coefficients_as_polynomial`; per-CRT mask bits through

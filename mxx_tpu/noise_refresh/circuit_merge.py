@@ -1,6 +1,6 @@
 """Merge circuits for decoded noise-refresh material.
 
-TPU-build of /root/reference/src/noise_refresh/circuit_merge.rs: after GSW
+Build of the reference's src/noise_refresh/circuit_merge.rs: after GSW
 decryption produced slotwise polynomial wires, the merge is plain circuit
 addition. Keeping it separate lets tests and benchmarks feed pre-decoded
 fixture wires without re-evaluating the expensive decrypt path.

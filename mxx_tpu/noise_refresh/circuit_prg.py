@@ -1,6 +1,6 @@
 """Goldreich PRG material generation for the noise-refresh protocol.
 
-TPU-build of /root/reference/src/noise_refresh/circuit_prg.rs: expands
+Build of the reference's src/noise_refresh/circuit_prg.rs: expands
 encrypted seed bits into encrypted PRG material — CBD `errors` first, then
 uniform `masks` — without decrypting or combining (those phases live in
 circuit_decrypt / circuit_merge). Each logical ciphertext flattens at the

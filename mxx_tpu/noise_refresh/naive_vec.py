@@ -1,6 +1,6 @@
 """Reference-faithful BGG-wire noise refresh: subtract -> round -> recompose.
 
-TPU-build of /root/reference/src/noise_refresh/naive_vec.rs (preprocess_many
+Build of the reference's src/noise_refresh/naive_vec.rs (preprocess_many
 :840, online_eval_many :1077, preprocess_from_decoded :1539,
 crt_recompose_rows :2086). The mechanism, per refreshed relative-channel wire
 c = s A - x (s G) + e and per CRT level i with qhat_i = q / q_i:

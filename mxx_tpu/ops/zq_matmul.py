@@ -1,11 +1,11 @@
-"""Exact Z_q polynomial-matrix multiply on the MXU via balanced int8 digits.
+"""Exact Z_q polynomial-matrix multiply via balanced int8 digits.
 
-TPU-native replacement for the reference's tiled CUDA eval-domain matmul
+Replacement for the reference's tiled CUDA eval-domain matmul
 (/root/reference/cuda/src/matrix/MatrixArith.cu:191-260). Each uint32 residue
 (q < 2^30) is split into four balanced base-256 digits in [-128, 127]; the
-16 digit-plane products run as s8 x s8 -> s32 batched matmuls (MXU-native on
-TPU), then the seven digit-diagonal planes are recombined mod q on the VPU
-with Montgomery multiplies by 2^{8s}.
+16 digit-plane products run as s8 x s8 -> s32 batched `dot_general`s, then
+the seven digit-diagonal planes are recombined mod q elementwise with
+Montgomery multiplies by 2^{8s}.
 
 Exactness: |digit| <= 128, so a plane accumulation over K terms is bounded by
 4 * 128^2 * K < 2^31 for K <= 32768 — no overflow, bit-exact results.

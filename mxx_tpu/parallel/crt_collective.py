@@ -7,7 +7,7 @@ the collective computes the thing protocols actually consume at scale:
 
     v = round(x * P / q) mod P          (scale-and-round to a small modulus)
 
-which decomposes into per-limb contributions that psum over ICI:
+which decomposes into per-limb contributions that psum across devices:
 
     e_t * P / q = I_t + f_t  (integer and fractional part, host precomputed)
     v = ( sum_t [r_t * I_t mod P]  +  round(sum_t r_t * f_t) ) mod P
@@ -29,10 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .mesh import LIMB_AXIS
 

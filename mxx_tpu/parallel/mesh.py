@@ -1,11 +1,11 @@
 """Device-mesh helpers: limb/column sharding for DCRT polynomial matrices.
 
-The TPU-native parallelism design (SURVEY.md §2.7): CRT limbs are independent
+The parallelism design (SURVEY.md §2.7): CRT limbs are independent
 moduli, so the limb axis shards with ZERO communication (the analog of the
 reference's per-limb CUDA grid axis, MatrixNTT.cu:39); matrix column blocks
 shard like tensor parallelism (the analog of column-chunk pipelines, P5);
 batches of preimage/gate tasks shard data-parallel (P4, multi-GPU round
-robin). CRT reconstruction and row-block reductions use psum over ICI (P9).
+robin). CRT reconstruction and row-block reductions use psum (P9).
 """
 
 from __future__ import annotations
@@ -35,6 +35,14 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
     return Mesh(np.array(devs).reshape(nl, nc), (LIMB_AXIS, COL_AXIS))
 
 
+def column_mesh(mesh: Mesh) -> Mesh:
+    """`mesh`'s devices laid out along `col` alone, for a path that shards
+    only columns: on a limb axis of size > 1 it would run redundant copies."""
+    if mesh.shape[LIMB_AXIS] == 1:
+        return mesh
+    return Mesh(mesh.devices.reshape(1, -1), (LIMB_AXIS, COL_AXIS))
+
+
 def matrix_sharding(mesh: Mesh, shard_cols: bool = False) -> NamedSharding:
     """Sharding for uint32[L, r, c, n]: limbs always sharded; columns optional."""
     return NamedSharding(mesh, P(LIMB_AXIS, None, COL_AXIS if shard_cols else None, None))
@@ -50,10 +58,8 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 
 def pcast_varying(x, axes):
-    """`jax.lax.pcast(..., to='varying')` with fallback for older jax."""
+    """Mark `x` as varying over the manual mesh `axes` (no-op for none)."""
     axes = tuple(axes)
     if not axes:
         return x
-    if hasattr(jax.lax, "pcast"):
-        return jax.lax.pcast(x, axes, to="varying")
-    return jax.lax.pvary(x, axes)
+    return jax.lax.pcast(x, axes, to="varying")

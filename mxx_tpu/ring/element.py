@@ -1,6 +1,6 @@
 """Host-side ring element Z_q with arbitrary-precision modulus.
 
-TPU-build analog of the reference's `FinRingElem`
+Analog of the reference's `FinRingElem`
 (/root/reference/src/element/finite_ring.rs:10-27): a plain Python-int value
 mod the full composite modulus q. Used at protocol boundaries (LUT outputs,
 decode thresholds); bulk data lives in device arrays instead.

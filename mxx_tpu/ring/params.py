@@ -1,6 +1,6 @@
-"""DCRT (RNS) ring parameters for the TPU-native lattice framework.
+"""DCRT (RNS) ring parameters for the lattice framework.
 
-`RingParams` is the TPU analog of the reference's `DCRTPolyParams`
+`RingParams` is the analog of the reference's `DCRTPolyParams`
 (/root/reference/src/poly/dcrt/params.rs:10-110). It generates its own CRT
 basis (primes q_t = 1 mod 2n, each `crt_bits` bits) instead of delegating to
 OpenFHE FFI, and precomputes every device table needed by the kernels:
@@ -11,7 +11,7 @@ OpenFHE FFI, and precomputes every device table needed by the kernels:
 - CRT idempotent residues and gadget-vector residues for the per-tower
   base-2^b digit decomposition (G / G^{-1}), including `decompose_last_mask`
   semantics (params.rs:82-96).
-- Balanced int8-digit combination constants for the exact MXU matmul path.
+- Balanced int8-digit combination constants for the exact matmul path.
 
 A polynomial is an array uint32[L, n]; a polynomial matrix uint32[L, r, c, n].
 """

@@ -1,6 +1,6 @@
 """DCRT polynomial: uint32[L, n] residue array with a COEFF/EVAL format flag.
 
-TPU analog of the reference's `DCRTPoly`
+Analog of the reference's `DCRTPoly`
 (/root/reference/src/poly/dcrt/poly.rs:24-30) and the `Poly` trait
 (/root/reference/src/poly/mod.rs:79-197). The NTT state is an explicit static
 flag resolved at trace time (the reference keeps a lazy COEFF/EVAL flag per
@@ -21,7 +21,7 @@ import numpy as np
 
 from ..ops.elementwise import ew_add, ew_mul, ew_mul_mont_const, ew_neg, ew_sub, reduce_once
 from .element import FinRingElem
-from .ntt import ntt_fwd, ntt_fwd_auto, ntt_inv, ntt_inv_auto
+from .ntt import ntt_fwd, ntt_inv
 from .params import RingParams
 
 COEFF = "coeff"
@@ -126,12 +126,15 @@ class Poly:
     def to_eval(self) -> "Poly":
         if self.fmt == EVAL:
             return self
-        return Poly(ntt_fwd_auto(self.data, self.params), EVAL, self.params)
+        jt = self.params.jt
+        return Poly(ntt_fwd(self.data, jt.psi_rev_mont, jt.moduli, jt.qinv_neg), EVAL, self.params)
 
     def to_coeff(self) -> "Poly":
         if self.fmt == COEFF:
             return self
-        return Poly(ntt_inv_auto(self.data, self.params), COEFF, self.params)
+        jt = self.params.jt
+        data = ntt_inv(self.data, jt.psi_inv_rev_mont, jt.n_inv_mont, jt.moduli, jt.qinv_neg)
+        return Poly(data, COEFF, self.params)
 
     # ------------------------------------------------------------ accessors
 

@@ -1,6 +1,6 @@
 """ChaCha20 counter-mode PRNG with a full 256-bit keyspace, on raw key arrays.
 
-TPU-native replacement for the reference's ChaCha20 CUDA device RNG
+Replacement for the reference's ChaCha20 CUDA device RNG
 (/root/reference/cuda/src/ChaCha.cu:5-50) and the security backbone for every
 keyed sampler: the round-1 build truncated SHA-256 digests to 8 bytes to seed
 threefry2x32 (a 2^64 keyspace — ADVICE.md round-1 high finding). This module
@@ -10,7 +10,7 @@ Implementation: RFC-8439 ChaCha20 block function vectorized over blocks; the
 16-word state is [4 consts, 8 key words, 1 block counter, 3 nonce words]. The
 three nonce words carry (counter_hi, stream word, purpose tag) so the
 `random_bits` / `fold_in` / `split` streams can never collide. All arithmetic
-is uint32 adds/xors/rotates — pure VPU work that XLA fuses into a single
+is uint32 adds/xors/rotates — elementwise work that XLA fuses into a single
 elementwise program per draw.
 
 Design note: an earlier revision registered this impl through
@@ -127,9 +127,7 @@ def _chacha_blocks(key8, counters, nonce0, nonce1, nonce2):
 
 def _chacha_blocks_words_major(key8, counters, nonce0, nonce1, nonce2):
     """Same keystream as `_chacha_blocks` but stacked [16, nblocks] (word
-    index MAJOR). Large draws must use this layout: a [nblocks, 16] array
-    pads its 16-element lane dimension to 128 on TPU (8x memory — a 1 GB
-    sample transiently allocated 22 GB before this fix)."""
+    index MAJOR), so the large block axis is the minor one."""
     nb = counters.shape[0]
     state = []
     for i in range(4):
@@ -162,8 +160,8 @@ def _keystream_words(key8, nwords: int, domain: np.uint32):
     """uint32[nwords] of keystream under (key, domain).
 
     Word order is WORD-MAJOR across blocks (index = word*nblocks + block) so
-    the big axis stays in the TPU lane dimension; any fixed deterministic
-    order is equally uniform, and offline/online callers re-derive streams
+    the big axis stays the minor one; any fixed deterministic order is
+    equally uniform, and offline/online callers re-derive streams
     through this same function."""
     nblocks = -(-nwords // 16)
     counters = jnp.arange(nblocks, dtype=jnp.uint32)

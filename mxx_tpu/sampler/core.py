@@ -1,6 +1,6 @@
 """Core jitted sampling kernels: counter-based keyed PRNG -> residue planes.
 
-TPU-native replacement for the reference's Keccak rejection hash sampler
+Replacement for the reference's Keccak rejection hash sampler
 (/root/reference/src/sampler/hash.rs:14-51), OpenFHE DUG/DGG/BUG/TUG
 generators (src/sampler/uniform.rs) and the ChaCha CUDA RNG
 (cuda/src/ChaCha.cu). Design:

@@ -1,6 +1,6 @@
 """Affine error-norm evaluation engine with cached sub-circuit summaries.
 
-TPU-build of /root/reference/src/simulator/eval_error/{mod.rs,engine.rs,
+Build of the reference's src/simulator/eval_error/{mod.rs,engine.rs,
 summary.rs} (SURVEY.md A.7). For large circuits, evaluating every gate per
 sub-circuit call is wasteful: within a fixed input-plaintext-norm profile the
 matrix-norm propagation is AFFINE in the input matrix norms, so each

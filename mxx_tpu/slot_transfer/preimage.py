@@ -1,6 +1,6 @@
 """Preimage-backed slot transfer for packed (BggPolyEncoding) wires.
 
-TPU-build of /root/reference/src/slot_transfer/{bgg_pubkey.rs,
+Build of the reference's src/slot_transfer/{bgg_pubkey.rs,
 bgg_poly_encoding.rs}. Packed wires carry one row per slot under per-slot
 secrets sigma_s = t S_s (t the base secret row, S_s a ternary d x d slot
 mat). Slot transfer re-encodes the value of a source slot under the

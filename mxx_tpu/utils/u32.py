@@ -1,12 +1,12 @@
-"""32-bit modular arithmetic primitives for TPU (jnp, uint32).
+"""32-bit modular arithmetic primitives (jnp, uint32).
 
 All residues are stored in standard form in [0, q) with q < 2^31. 64-bit
-products are emulated with 16-bit limb splits so every op maps onto native
-32-bit VPU integer multiplies; Montgomery reduction (R = 2^32) avoids division.
+products are built from 16-bit limb splits so every op is a 32-bit integer
+multiply; Montgomery reduction (R = 2^32) avoids division.
 
 This layer replaces the reference's OpenFHE native modular arithmetic and the
 CUDA modmul helpers (/root/reference/cuda/src/matrix/MatrixArith.cu) with
-TPU-friendly vectorized primitives.
+vectorized jnp primitives.
 
 Convention: data tensors carry a leading limb axis; per-limb constants are
 passed as uint32 arrays of shape [L] and broadcast with `limb_bcast`.

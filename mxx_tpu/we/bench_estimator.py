@@ -1,6 +1,6 @@
 """Diamond WE benchmark estimation.
 
-TPU-build of /root/reference/src/we/diamond_we/bench_estimator.rs: enc =
+Build of the reference's src/we/diamond_we/bench_estimator.rs: enc =
 injector preprocess (transition trapdoors + preimages) + pubkey-path circuit
 eval + output-projection preimages; dec = injector online digit threading +
 encoding-path circuit eval + masked decode.

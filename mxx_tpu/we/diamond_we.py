@@ -1,6 +1,6 @@
 """Diamond witness encryption.
 
-TPU-build of /root/reference/src/we/diamond_we.rs. Encryption embeds the
+Build of the reference's src/we/diamond_we.rs. Encryption embeds the
 message as the injector payload k = (q/2)*msg, evaluates the relation circuit
 over hash-derived BGG pubkeys, and publishes projection preimages plus the
 masked decoder preimage for

@@ -1,6 +1,6 @@
 // Native bit-packing codec for compact polynomial serialization.
 //
-// TPU-build analog of the reference's on-device compact byte codec
+// Analog of the reference's on-device compact byte codec
 // (/root/reference/cuda/src/matrix/MatrixSerde.cu): residues are < 2^crt_bits,
 // so packing each uint32 to `bits` bits shrinks artifacts by 4*8/bits. Exposed
 // through a C ABI consumed via ctypes (no pybind11 in this image).

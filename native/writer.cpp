@@ -1,6 +1,6 @@
 // Native asynchronous artifact writer.
 //
-// TPU-build analog of the reference's global tokio storage writer
+// Analog of the reference's global tokio storage writer
 // (/root/reference/src/storage/write.rs:363): a background worker pool drains
 // a queue of (path, bytes) jobs; `mxx_writer_wait_all` is the completion
 // barrier. Exposed through a C ABI consumed via ctypes.

@@ -6,12 +6,12 @@ jitted program over an 8-virtual-device (limb x col) mesh, parse the
 optimized HLO for collective ops (all-reduce / all-gather / reduce-scatter /
 collective-permute / all-to-all), and report
 
-  - collective bytes moved per device per step (the ICI traffic), vs
+  - collective bytes moved per device per step (the interconnect traffic), vs
   - the FLOP-proportional compute bytes each shard touches (the work), vs
   - the bytes a replicated single-chip program would touch (the baseline).
 
 Scaling efficiency at N devices ~ compute_per_shard / (compute_per_shard +
-comm / ici_bw * compute_bw). The sharded preimage plane and the limb-sharded
+comm / link_bw * compute_bw). The sharded preimage plane and the limb-sharded
 NTT/matmul pipeline are embarrassingly parallel by construction (zero
 collectives expected); the CRT-switch collective is the one communicating
 step, and its volume is L-fold smaller than the operand it folds.
@@ -24,24 +24,19 @@ import os
 import re
 import sys
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
-
 import mxx_tpu  # noqa: F401
+from mxx_tpu.utils.compile_cache import enable_compile_cache
 from mxx_tpu.ring.params import RingParams
 from mxx_tpu.matrix import PolyMatrix
 from mxx_tpu.sampler import FinRingDist, TrapdoorSampler, UniformSampler
 from mxx_tpu.parallel import factor_devices
+from mxx_tpu.parallel.mesh import column_mesh
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 COLLECTIVES = (
@@ -97,6 +92,7 @@ def analyze(name, jitted, args, shardings=None):
 
 
 def main():
+    enable_compile_cache()
     n_dev = len(jax.devices())
     nl, nc = factor_devices(n_dev)
     mesh = Mesh(np.array(jax.devices()).reshape(nl, nc), ("limb", "col"))
@@ -105,32 +101,34 @@ def main():
     # --- Plane 1: sharded preimage batch (P4) --------------------------------
     # Columns of a batched preimage target are embarrassingly parallel; the
     # fused preimage program sharded over the col axis must compile with ZERO
-    # collectives: every shard samples its own p2/p1/G-coset chain.
+    # collectives: every shard samples its own p2/p1/G-coset chain. Like
+    # preimage_batched_sharded, it lays every device along col.
+    pmesh = column_mesh(mesh)
     params = RingParams.new(64, 2, 20, 10)
     ts = TrapdoorSampler(params, 4.578, seed=3)
     td, pub = ts.trapdoor(params, 1)
     us = UniformSampler(seed=4)
-    cols = 4 * nc
+    cols = 4 * n_dev
     tgt = us.sample_uniform(params, 1, cols, FinRingDist()).to_eval()
 
     core = ts._preimage_core(params, td, pub, 1)
     s = __import__("mxx_tpu.sampler.trapdoor", fromlist=["x"]).preimage_smoothing_parameter(
         ts.base, ts.sigma, 1, params.n, params.modulus_digits)
     r_data, e_data, pub_data, sqrt_var, upd = ts._preimage_operands(params, td, pub, s)
-    sharded_fn = jax.jit(ts._sharded_preimage_fn(mesh, core))
-    tgt_sh = jax.device_put(tgt.data, NamedSharding(mesh, P(None, None, "col", None)))
+    sharded_fn = jax.jit(ts._sharded_preimage_fn(pmesh, core))
+    tgt_sh = jax.device_put(tgt.data, NamedSharding(pmesh, P(None, None, "col", None)))
     args = (tgt_sh, r_data, e_data, pub_data, sqrt_var, upd, jnp.uint32(7))
-    with mesh:
+    with pmesh:
         cb, _ = analyze("preimage plane, col-sharded shard_map (P4)", sharded_fn, args)
     assert not cb, f"preimage plane must be collective-free, got {cb}"
 
     # Replicated baseline: same program, no sharding -> every chip touches the
-    # full plane. Per-device bytes under col-sharding = full/nc.
+    # full plane. Per-device bytes under col-sharding = full/n_dev.
     full_bytes = int(np.prod(tgt.data.shape)) * 4
     out_rows = 2 * 1 + 1 * params.modulus_digits
     out_bytes = params.crt_depth * out_rows * cols * params.n * 4
     print(f"   operand bytes {full_bytes:,}; output bytes {out_bytes:,}; "
-          f"per-device share 1/{nc} of compute, 0 ICI bytes")
+          f"per-device share 1/{n_dev} of compute, 0 collective bytes")
     print(f"   -> scaling efficiency model: eff(N_col) = 1.0 (no comm term); "
           f"wall limited only by per-shard compute")
 
@@ -165,10 +163,7 @@ def main():
     # minor-axis col sharding at the NTT's batch-dim flatten and re-gathers;
     # the production sharded planes — preimage, LWE offline, injector — all
     # ride shard_map for exactly this reason, trapdoor._sharded_preimage_fn).
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     def step_local(a, b, psi, psi_i, n_inv, q, qinv, cp, sc):
         from mxx_tpu.parallel.mesh import pcast_varying
@@ -208,13 +203,10 @@ def main():
     comm = sum(cb3.values())
     print(f"   operand bytes {op_bytes:,} -> collective bytes {comm:,} "
           f"({comm / op_bytes:.2f}x operand; the folded plane is 1/L of it)")
-    # v5p ICI ~ 100 GB/s/link vs HBM ~ 2.7 TB/s: comm/compute byte ratios
-    # below ~0.03 keep the collective under 10% of step time even if fully
-    # serialized; report the margin.
     print("\nSummary: offline planes (preimage, NTT/matmul) shard with zero "
-          "ICI traffic; the CRT switch is the only collective and moves ~1/L "
+          "collective traffic; the CRT switch is the only collective and moves ~1/L "
           "of its operand. Scaling loss comes only from per-shard load "
-          "imbalance, supporting the >=80% efficiency target analytically.")
+          "imbalance.")
 
 
 if __name__ == "__main__":

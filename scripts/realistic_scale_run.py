@@ -1,11 +1,12 @@
-"""Realistic-scale end-to-end run on the real TPU (VERDICT r1 item 6).
+"""Realistic-scale end-to-end run of the LWE public-LUT mod-p chain.
 
 LWE public-LUT mod-p chain at n=2^13, L=8 x 28-bit limbs, base 2^14, d=1,
 sigma_err=4.0 — the reference's test_lwe_modp_chain.rs workload at the
 reference's own ring dimension class (their CPU test uses n=2^10 with 51-bit
 towers; our u32 design compensates with depth). Offline pubkey pass, online
-encoding pass, masked-rounding decode against the plaintext oracle, per-phase
-wall times printed and recorded in BENCHMARKS.md.
+encoding pass, masked-rounding decode against the plaintext oracle; prints
+per-phase wall times as one JSON line. The body is
+`mxx_tpu.lookup.modp_chain.run_lwe_modp_chain`.
 
 Run from the repo root: python scripts/realistic_scale_run.py
 """
@@ -15,128 +16,34 @@ import sys
 sys.path.insert(0, ".")
 
 import json
-import random
 import tempfile
-import time
 
 import mxx_tpu  # noqa: F401
 import jax
 
-from mxx_tpu.bgg import BGGEncodingSampler, BGGPublicKeySampler
-from mxx_tpu.circuit import PolyCircuit
-from mxx_tpu.lookup import PolyPltEvaluator, PublicLut
-from mxx_tpu.lookup.lwe import LWEBGGEncodingPltEvaluator, LWEBGGPubKeyPltEvaluator
-from mxx_tpu.matrix import PolyMatrix
-from mxx_tpu.ring.params import RingParams
-from mxx_tpu.ring.poly import Poly
-from mxx_tpu.sampler import TernaryDist, TrapdoorSampler, UniformSampler
-from mxx_tpu.storage import init_storage_system, wait_for_all_writes
+from mxx_tpu.lookup.modp_chain import ERROR_SIGMA, run_lwe_modp_chain
+from mxx_tpu.utils.compile_cache import enable_compile_cache
 
 N = 1 << 13
 L = 8
 CRT_BITS = 28
 BASE_BITS = 14
-P_MOD = 7
-ERROR_SIGMA = 4.0
-TRAPDOOR_SIGMA = 4.578
-KEY = bytes([0x13, 0x37, 0xC0, 0xDE] * 8)
 
 
 def main():
-    print(f"platform: {jax.devices()[0].platform} {jax.devices()[0]}", flush=True)
-    phases = {}
-
-    def phase(name):
-        class _P:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *a):
-                phases[name] = round(time.perf_counter() - self.t0, 3)
-                print(f"  {name}: {phases[name]}s", flush=True)
-
-        return _P()
-
-    with phase("params_tables"):
-        params = RingParams.new(N, L, CRT_BITS, BASE_BITS)
-        params.jt  # build device tables
-    q = params.modulus
-    q_over_p = q // P_MOD
-
-    circuit = PolyCircuit()
-    inputs = circuit.input(3)
-    lut = PublicLut.from_dict(params, {x: (x, x % P_MOD) for x in range(P_MOD * P_MOD)})
-    lut_id = circuit.register_public_lut(lut)
-    t1 = circuit.mul_gate(inputs[0], inputs[1])
-    t1m = circuit.public_lookup_gate(t1, lut_id)
-    t2 = circuit.mul_gate(t1m, inputs[2])
-    t2m = circuit.public_lookup_gate(t2, lut_id)
-    circuit.output([t2m])
-
-    rng = random.Random(4242)
-    a, b, c = (rng.randrange(P_MOD) for _ in range(3))
-    expected = ((a * b) % P_MOD) * c % P_MOD
-    plaintexts = [Poly.const(params, v) for v in (a, b, c)]
-
-    d = 1
-    with phase("sampling_keys"):
-        pk_sampler = BGGPublicKeySampler(KEY, d)
-        us = UniformSampler(seed=99)
-        secrets = [us.sample_poly(params, TernaryDist()) for _ in range(d)]
-        pubkeys = pk_sampler.sample(params, b"realistic", [True] * 3)
-        es = BGGEncodingSampler(params, secrets, gauss_sigma=ERROR_SIGMA, seed=98)
-        encodings = es.sample(params, pubkeys, plaintexts)
-        trap = TrapdoorSampler(params, TRAPDOOR_SIGMA, seed=97)
-        b0_trapdoor, b0_matrix = trap.trapdoor(params, d)
-        b0_matrix.data.block_until_ready()
-
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    print(f"platform: {dev.platform} {dev.device_kind} x{len(jax.devices())}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        init_storage_system(tmp)
-
-        with phase("plaintext_oracle"):
-            pt = circuit.eval(
-                params, Poly.one(params), plaintexts, plt_evaluator=PolyPltEvaluator()
-            )[0]
-            assert pt.const_coeff() == expected
-
-        with phase("offline_pubkey_circuit"):
-            pk_eval = LWEBGGPubKeyPltEvaluator(KEY, trap, b0_matrix, b0_trapdoor, tmp)
-            result_pubkey = circuit.eval(
-                params, pubkeys[0], pubkeys[1:], plt_evaluator=pk_eval
-            )
-
-        with phase("offline_k_high_sampling"):
-            pk_eval.sample_aux_matrices(params)
-            wait_for_all_writes()
-
-        with phase("online_encoding_circuit"):
-            c_b = es.secret_vec @ b0_matrix
-            enc_eval = LWEBGGEncodingPltEvaluator(KEY, tmp, c_b)
-            enc = circuit.eval(
-                params, encodings[0], encodings[1:], plt_evaluator=enc_eval
-            )[0]
-
-        with phase("decode"):
-            assert enc.plaintext.const_coeff() == expected
-            assert enc.pubkey.matrix == result_pubkey[0].matrix
-            s_times_pk = es.secret_vec @ enc.pubkey.matrix
-            gadget = PolyMatrix.gadget_matrix(params, d)
-            etg = (es.secret_vec @ gadget).mul_poly_scalar(enc.plaintext)
-            diff = enc.vector - s_times_pk + etg
-            coeff = int(diff.entry(0, 0).coeffs()[0])
-            err = min(coeff, q - coeff)
-            assert err < q_over_p // 2, f"error too large: {err}"
-            rand_int = rng.randrange(P_MOD)
-            rounded = (coeff + q_over_p * rand_int + q_over_p // 2) // q_over_p
-            assert rounded % P_MOD == rand_int
-
+        res = run_lwe_modp_chain((N, L, CRT_BITS, BASE_BITS), tmp)
     print(json.dumps({
         "workload": f"lwe_modp_chain n={N} L={L} crt_bits={CRT_BITS} "
                     f"base_bits={BASE_BITS} sigma={ERROR_SIGMA}",
+        "device": dev.device_kind,
         "decode": "ok",
-        "error_bits": err.bit_length(),
-        "phases_s": phases,
-        "total_s": round(sum(phases.values()), 3),
+        "error_bits": res["error_bits"],
+        "phases_s": res["phases_s"],
+        "total_s": sum(res["phases_s"].values()),
     }), flush=True)
 
 

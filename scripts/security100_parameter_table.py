@@ -6,8 +6,7 @@ security-100 grid (VERDICT r4 directive #4): the analog of
 search_only=true, latency = critical path under UNBOUNDED parallelism —
 its total_time column is ~1e57 ns).
 
-Methodology (every number either measured, closed-form, or extrapolated by
-the documented fit):
+Methodology (every number either closed-form or fitted as documented):
 
 1. **Composed error budget.** The circuit phases (PRG round edge, mask
    decrypt) cannot be norm-walked directly at production shape: one PRG
@@ -29,18 +28,14 @@ the documented fit):
 2. **Security bits** from the lattice-estimator bridge
    (lattice-estimator-cli when installed, else the core-SVP fallback) at
    (n=65536, log2 q = depth*28, sigma 3.19).
-3. **Latency floor** from the MEASURED preimage throughput on the attached
-   TPU (anchors at n=8192/16384 at production depth, power-law
-   extrapolated x4 in n): obfuscate_floor = total preimage work /
-   parallelism. The reference's latency column instead assumes unbounded
-   parallelism; both conventions are reported.
+3. **Latency floor**: obfuscate_floor = total preimage work / parallelism,
+   which needs the measured preimage throughput at n=65536, L=53 on the
+   GPU. No such cell exists yet, so the column reads "not measured".
 
-Sanity gate (VERDICT r4 #4): obfuscate_floor >= injector_preimages x
-per-preimage-cost / parallelism by construction, and the budget margin
-must be POSITIVE at the selected depth.
+Sanity gate (VERDICT r4 #4): the budget margin must be POSITIVE at the
+selected depth.
 
-Run ON THE TPU: python scripts/security100_parameter_table.py
-(set SKIP_TPU=1 to reuse the recorded anchors instead of re-measuring).
+Run: python scripts/security100_parameter_table.py (host arithmetic only).
 
 AKY24 iO / FE share every phase of this budget except the input
 composition (fresh Gaussian sigma*tail ~ 5+log2(6.5*sigma*sqrt(n)) bits
@@ -52,14 +47,13 @@ so AKY24 margins dominate the Diamond rows at equal (depth, v)
 
 import csv
 import math
-import os
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, ".")
 
 import mxx_tpu  # noqa: F401
+from mxx_tpu.utils.compile_cache import enable_compile_cache
 
 N_PROD = 65536
 CRT_BITS = 28
@@ -80,10 +74,6 @@ FIT_GRID = [
     (1024, 42, 548, 162),
 ]
 
-# measured preimage anchors (attached v5e, fused-NTT default, d=1, 8 cols,
-# depth 53, round-5 run); re-measured when SKIP_TPU is unset
-ANCHORS_DEFAULT = {8192: 24.64, 16384: 12.69}
-
 
 def _lstsq_fit(rows):
     """Least-squares fit bits = a + b*log2(gl) + c*log2(n)."""
@@ -97,28 +87,6 @@ def _lstsq_fit(rows):
         resid = y - A @ coef
         out.append((coef, float(max(abs(resid)))))
     return out
-
-
-def measure_preimage_cols_per_s(n: int, depth: int, d: int, cols: int) -> float:
-    from mxx_tpu.ring.params import RingParams
-    from mxx_tpu.sampler import FinRingDist, TrapdoorSampler, UniformSampler
-    import numpy as np
-
-    params = RingParams.new(n, depth, CRT_BITS, BASE_BITS)
-    ts = TrapdoorSampler(params, 4.578, seed=0)
-    td, b = ts.trapdoor(params, d)
-    us = UniformSampler(seed=1)
-    tgt = us.sample_uniform(params, d, cols, FinRingDist())
-
-    def probe(x):
-        np.asarray(x.reshape(-1)[:1])
-
-    probe(ts.preimage(params, td, b, tgt).data)
-    t0 = time.perf_counter()
-    for _ in range(2):
-        probe(ts.preimage(params, td, b, tgt).data)
-    el = (time.perf_counter() - t0) / 2
-    return cols / el
 
 
 def compose_budget(depth: int, input_count: int, batch_bits: int,
@@ -191,6 +159,7 @@ def compose_budget(depth: int, input_count: int, batch_bits: int,
 
 
 def main():
+    enable_compile_cache()
     from mxx_tpu.input_injector import DiamondInjector
     from mxx_tpu.io_protocols.diamond_io import DIAMOND_SECRET_SIZE
     from mxx_tpu.ring.params import RingParams
@@ -204,15 +173,6 @@ def main():
           f"{prg_coef[2]:.1f} log2(n)  (max resid {prg_resid:.1f} bits)")
     print(f"fit: off = {mask_coef[0]:.1f} + {mask_coef[1]:.1f} log2(gl) + "
           f"{mask_coef[2]:.1f} log2(n)  (max resid {mask_resid:.1f} bits)")
-
-    anchors = dict(ANCHORS_DEFAULT)
-    if os.environ.get("SKIP_TPU") != "1":
-        for n_anchor in (8192, 16384):
-            anchors[n_anchor] = measure_preimage_cols_per_s(n_anchor, 53, 1, 8)
-            print(f"anchor n={n_anchor}: {anchors[n_anchor]:.2f} cols/s", flush=True)
-    assert anchors[16384] is not None
-    alpha = math.log2(max(anchors[8192] / anchors[16384], 1.0))
-    cols_per_s_prod = anchors[16384] / (4 ** alpha)
 
     rows = []
     REF_DEPTHS = {8: 50, 9: 51, 10: 53, 11: 55}
@@ -260,12 +220,6 @@ def main():
             for level in range(1, input_count + 1)
         )
         state_cols = 2 * DIAMOND_SECRET_SIZE * (k_digits + 2)
-        per_preimage_secs = (state_cols * 2) / cols_per_s_prod
-        obfuscate_floor = injector_preimages * per_preimage_secs / PARALLELISM
-        obfuscate_critical = (input_count + 2) * per_preimage_secs
-
-        assert obfuscate_floor >= injector_preimages * per_preimage_secs / PARALLELISM
-
         entry_bytes = -(-depth * CRT_BITS * N_PROD // 8)
         artifact_bytes = injector_preimages * state_cols * state_cols * entry_bytes
 
@@ -288,10 +242,7 @@ def main():
             "worstcase_margin_bits": margin,
             "steady_state_pre_rounding_feasible_worstcase": False,
             "injector_preimages": injector_preimages,
-            "measured_preimage_cols_per_s_n16384_L53": round(anchors[16384], 2),
-            "extrapolated_cols_per_s_n65536": round(cols_per_s_prod, 2),
-            "obfuscate_floor_secs_par8": round(obfuscate_floor, 1),
-            "obfuscate_critical_path_secs": round(obfuscate_critical, 1),
+            f"obfuscate_floor_secs_par{PARALLELISM}": "not measured",
             "est_artifact_bytes": artifact_bytes,
         })
         print(rows[-1], flush=True)
@@ -301,7 +252,7 @@ def main():
     with out_path.open("w", newline="") as f:
         f.write("# methodology: see scripts/security100_parameter_table.py "
                 "module doc (fitted circuit-phase bits + closed-form "
-                "composition + measured TPU preimage anchors)\n")
+                "composition; latency floor not measured)\n")
         f.write(f"# fit grid (n, gl, amp_prg_bits, mask_offset_bits): {FIT_GRID}\n")
         f.write(f"# fit residuals: amp {prg_resid:.1f} bits, off {mask_resid:.1f} bits\n")
         w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))

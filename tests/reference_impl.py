@@ -38,3 +38,11 @@ def poly_matmul(a, b, q, n):
                 acc = [(x + y) % q for x, y in zip(acc, prod)]
             out[i][j] = acc
     return out
+
+
+def poly_eval(coeffs: list[int], x: int, q: int) -> int:
+    """sum_k coeffs[k] * x^k mod q (Horner)."""
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + int(c)) % q
+    return acc

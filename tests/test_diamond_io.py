@@ -164,7 +164,7 @@ def test_diamond_io_real_mode_e2e(tmp_path):
     (/root/reference/src/io/diamond_io.rs:428-469,
     tests/test_gpu_diamond_io.rs; real-mode PRG circuit_prg.rs:30).
 
-    Wall time: see BENCHMARKS.md round-5 ("real-mode e2e timings")."""
+    Wall time on the H100: not measured."""
     params = RingParams.new(2, 2, 9, 9)
     cfg = PrfConfig(
         seed_bits=5,

@@ -1,7 +1,7 @@
 """End-to-end LWE public-LUT mod-p chain: offline pubkey path + online
 encoding path + masked-rounding decode.
 
-TPU-build mirror of /root/reference/tests/test_lwe_modp_chain.rs:29-300
+Mirror of the reference's tests/test_lwe_modp_chain.rs:29-300
 (smaller but non-trivial parameters; the reference uses n=2^10, crt_bits=51 —
 our u32-limb design caps crt_bits at 30, so depth compensates).
 """

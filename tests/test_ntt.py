@@ -10,7 +10,9 @@ from mxx_tpu.ring.params import RingParams
 from mxx_tpu.ring.ntt import ntt_fwd, ntt_inv, pointwise_mul
 from mxx_tpu.utils.u32 import montmul, mulhi_u32, addmod, submod
 
-from reference_impl import negacyclic_mul
+from mxx_tpu.utils.numth import bit_reverse, find_primitive_2n_root
+
+from reference_impl import negacyclic_mul, poly_eval
 
 
 def rand_poly(rng, params):
@@ -116,25 +118,23 @@ def test_params_modulus_and_idempotents():
     assert params.reconstruct_coeff(residues) == v % params.modulus
 
 
-def test_four_step_ntt_matches_radix_chain():
-    """Experimental MXU four-step forward NTT lands bit-exactly on the
-    radix-chain EVAL output (ops/four_step_ntt.py)."""
-    import numpy as np
-
-    from mxx_tpu.ops.four_step_ntt import four_step_ntt_fwd
-    from mxx_tpu.ring.ntt import ntt_fwd
-
-    for n, n1 in ((64, 8), (256, 16), (4096, 64), (8192, 64)):
-        params = RingParams.new(n, 3, 28, 14)
-        jt = params.jt
-        rng = np.random.default_rng(5)
-        x = np.stack(
-            [rng.integers(0, q, (4, n), dtype=np.uint64).astype(np.uint32)
-             for q in params.moduli]
-        )
-        import jax.numpy as jnp
-
-        xj = jnp.asarray(x)
-        want = ntt_fwd(xj, jt.psi_rev_mont, jt.moduli, jt.qinv_neg)
-        got = four_step_ntt_fwd(xj, params=params, n1=n1)
-        assert np.array_equal(np.asarray(got), np.asarray(want)), (n, n1)
+@pytest.mark.parametrize("n", [1 << 11, 1 << 13, 1 << 14])
+def test_ntt_chain_large_rings(n):
+    """The chain at the ring sizes the old fused plan took on a device: an
+    exact round trip, and forward outputs against Python-int evaluation at
+    psi^(2 bitrev(i) + 1) (EVAL slots are bit-reversed)."""
+    params = RingParams.new(n, 2, 28, 14)
+    jt = params.jt
+    rng = np.random.default_rng(n)
+    x = np.stack(
+        [rng.integers(0, q, (2, n), dtype=np.uint64).astype(np.uint32) for q in params.moduli]
+    )
+    y = ntt_fwd(jnp.asarray(x), jt.psi_rev_mont, jt.moduli, jt.qinv_neg)
+    z = ntt_inv(y, jt.psi_inv_rev_mont, jt.n_inv_mont, jt.moduli, jt.qinv_neg)
+    np.testing.assert_array_equal(np.asarray(z), x)
+    y = np.asarray(y)
+    for t, b, slot in zip(rng.integers(0, 2, 16), rng.integers(0, 2, 16), rng.integers(0, n, 16)):
+        q = params.moduli[t]
+        psi = find_primitive_2n_root(q, n)
+        w = pow(psi, 2 * bit_reverse(int(slot), params.log_n) + 1, q)
+        assert int(y[t, b, slot]) == poly_eval(x[t, b].tolist(), w, q)

@@ -10,9 +10,9 @@ covered by test_diamond_io_real_mode_e2e. Mirrors
 /root/reference/tests/test_gpu_diamond_io.rs over
 /root/reference/src/lookup/lwe/pubkey.rs:217-608.
 
-Measured (BENCHMARKS.md round 5): obfuscate ~24 min (9234 artifact files,
-2.2 GB — offline is dominated by per-LUT-entry K_high preimages, the same
-profile as the reference's production offline), evals ~40 s each.
+Offline writes ~9234 artifact files (2.2 GB) and is dominated by
+per-LUT-entry K_high preimages, the same profile as the reference's
+production offline. Wall time on the H100: not measured.
 """
 
 import pytest

@@ -231,3 +231,20 @@ def test_sample_hash_batch_matches_per_tag():
     for tag, got in zip(tags, batch):
         want = hs.sample_hash(params, key, tag, 2, 6, FinRingDist())
         assert got == want, tag
+
+
+@pytest.mark.parametrize("n_devices", [4, 8])
+def test_preimage_batched_sharded_default_mesh_uses_every_device(n_devices):
+    """make_mesh's default puts 4 devices on `limb`; the column-sharded
+    preimage plane still gives each device its own block of columns."""
+    from mxx_tpu.parallel.mesh import make_mesh
+
+    params = RingParams.new(16, 2, 20, 5)
+    ts = TrapdoorSampler(params, SIGMA, seed=53)
+    td, a = ts.trapdoor(params, 1)
+    target = UniformSampler(seed=54).sample_uniform(params, 1, 2 * n_devices, FinRingDist())
+    x = ts.preimage_batched_sharded(params, td, a, [target], mesh=make_mesh(n_devices))[0]
+    shards = x.data.addressable_shards
+    assert len({s.device for s in shards}) == n_devices
+    assert {s.data.shape[2] for s in shards} == {2}
+    assert (a @ x) == target

@@ -12,10 +12,7 @@ import mxx_tpu  # noqa: F401
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from mxx_tpu.ring.params import RingParams
 from mxx_tpu.ring.ntt import ntt_fwd
@@ -104,3 +101,14 @@ def test_crt_switch_sharded_exact(new_mod):
             val = params.reconstruct_coeff(arr[:, j, t])
             want = (val * new_mod + q // 2) // q % new_mod
             assert got[j, t] == want, (j, t, got[j, t], want)
+
+
+@pytest.mark.parametrize("n_devices", [1, 2, 4, 8])
+def test_column_mesh_lays_every_device_on_col(n_devices):
+    from mxx_tpu.parallel.mesh import COL_AXIS, LIMB_AXIS, column_mesh
+
+    mesh = make_mesh(n_devices)
+    cm = column_mesh(mesh)
+    assert (cm.shape[LIMB_AXIS], cm.shape[COL_AXIS]) == (1, n_devices)
+    assert list(cm.devices.ravel()) == list(mesh.devices.ravel())
+    assert column_mesh(cm) is cm
